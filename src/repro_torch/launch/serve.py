@@ -15,7 +15,6 @@ the one device given by ``--device``.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -39,19 +38,10 @@ from repro_torch.serving import (
 KV_LAYOUTS = ("slotted", "paged")
 
 
-def model_config(arch: str, reduced: bool = False,
-                 num_layers: Optional[int] = None,
-                 dtype: Optional[str] = None) -> ModelConfig:
-    """The registry config, optionally reduced, cut in depth or retyped."""
+def model_config(arch: str, reduced: bool = False) -> ModelConfig:
+    """The registry config, optionally reduced."""
     cfg = get(arch)
-    if reduced:
-        cfg = cfg.reduced()
-    changes = {}
-    if num_layers is not None:
-        changes["num_layers"] = num_layers
-    if dtype is not None:
-        changes["dtype"] = dtype
-    return dataclasses.replace(cfg, **changes) if changes else cfg
+    return cfg.reduced() if reduced else cfg
 
 
 def build_servers(cfg: ModelConfig, spec: ServiceSpec, n: int) -> List[Server]:
@@ -140,9 +130,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen3-8b")
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--num-layers", type=int, default=None,
-                    help="cut the depth (widths stay those of --arch)")
-    ap.add_argument("--dtype", default=None, help="float32 | bfloat16")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--kv-layout", choices=KV_LAYOUTS, default="slotted")
     ap.add_argument("--requests", type=int, default=16)
@@ -156,7 +143,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = model_config(args.arch, args.reduced, args.num_layers, args.dtype)
+    cfg = model_config(args.arch, args.reduced)
     model = Model(cfg, device)
     params = model.init(torch.Generator(device=device).manual_seed(args.seed))
     orch = orchestrator(model, params, args.servers, args.rate, args.max_seq,
