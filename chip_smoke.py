@@ -15,9 +15,13 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     128, page 16, contexts up to max_seq 1024) and at a G = 1 / head_dim 64
     case, in float32 and bfloat16 (rtol = atol 2e-4 and 2e-2).  Times the
     kernel, the plain version and one PyTorch library call with CUDA events,
-    L2 flushed before each launch, and computes each kernel's bound; the
-    slotted decode kernel also at B = 35, the capacity of the slotted
-    chains in phase 4.
+    L2 flushed before each launch, and computes each kernel's bound and
+    achieved rate (GB/s for decode, TFLOP/s for flash); the slotted decode
+    kernel also at B = 35, the capacity of the slotted chains in phase 4,
+    and flash at S = 512 and 1024, the serving path's largest prefill
+    buckets.  Asserts that one row decoded alone, inside a batch of 35 and
+    through the paged kernel at a pow2 page count is bit-equal (the
+    split-KV chunks sit at fixed positions).
  4. Serve: the port's serving entry point (launch/serve.py) at qwen3-8b
     full width in bfloat16 (random weights from a seed): 6 logical servers
     composed into chains, 16 requests with prompts of 100-600 tokens and 32
@@ -114,12 +118,17 @@ def build_kernels() -> None:
     log(f"build: {build.library_path().name} in {time.perf_counter() - t0:.1f} s")
     name, spill = None, ""
     for line in build.ptxas_report().splitlines():
-        m = re.search(r"(decode_kernel|flash_kernel)I(13__nv_bfloat16|f)Li(\d+)E"
-                      r"(?:Lb([01])E)?EEv", line)
+        m = re.search(r"(decode_chunk_kernel|decode_combine_kernel|flash_mma_kernel|"
+                      r"flash_fma_kernel)I(.*?)EEv", line)
         if m:
-            kind, t, hd, paged = m.groups()
-            layout = "" if paged is None else (", paged" if paged == "1" else ", dense")
-            name = f"{kind}<{'bf16' if t != 'f' else 'f32'}, hd={hd}{layout}>"
+            kind, args = m.groups()
+            dtype = ("bf16" if "__nv_bfloat16" in args or kind == "flash_mma_kernel"
+                     else "f32")
+            ints = re.findall(r"Li(\d+)E", args)       # head_dim, then the group bound
+            paged = re.search(r"Lb([01])", args)
+            parts = [dtype, *(f"{key}{x}" for key, x in zip(("hd=", "G<="), ints)),
+                     paged and ("paged" if paged.group(1) == "1" else "dense")]
+            name = f"{kind}<{', '.join(p for p in parts if p)}>"
         elif name and "spill" in line:
             spill = line.strip()
         elif name and "registers" in line:
@@ -212,6 +221,50 @@ def bound(nbytes: int, flops: int, dtype) -> tuple:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def finish(r: dict) -> dict:
+    """Adds the bound and the achieved rate (GB/s for a record whose
+    ``rate`` is "bytes", decode; TFLOP/s otherwise, flash) to a timing
+    record; returns the numbers the kernels line keeps."""
+    r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"], r["dtype"])
+    if r["rate"] == "bytes":
+        r["achieved"] = f"{r['bytes'] / r['ms'] / 1e6:.1f} GB/s"
+    else:
+        r["achieved"] = f"{r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s"
+    return {key: r[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                    "bound_by", "achieved")}
+
+
+def row_invariance(dtype, gen) -> None:
+    """One row decoded alone over a shorter cache, inside a batch of
+    SLOTTED_B at S = MAX_SEQ, and through the paged kernel at a pow2 page
+    count: the split-KV chunks sit at fixed positions, so the three outputs
+    must be bit-equal."""
+    row, n = 5, 300
+    q, k, v, ln = decode_inputs(SLOTTED_B, MAX_SEQ, H, KV, HD, dtype, gen)
+    ln[row] = n
+    batch = ops.decode_attention(q, k, v, ln)[row]
+    alone = ops.decode_attention(q[row:row + 1].clone(), k[row:row + 1, :512].contiguous(),
+                                 v[row:row + 1, :512].contiguous(), ln[row:row + 1].clone())[0]
+    npages = -(-n // PAGE)
+    PP = 1 << (npages - 1).bit_length()
+    kp, vp = randn((4 * PP + 1, PAGE, KV, HD), dtype, gen), randn((4 * PP + 1, PAGE, KV, HD),
+                                                                   dtype, gen)
+    perm = torch.randperm(4 * PP, generator=gen, device="cuda").to(torch.int32)
+    bt = torch.full((4, PP), -1, dtype=torch.int32, device="cuda")
+    for r in range(4):
+        bt[r, :npages] = perm[r * PP:r * PP + npages]
+    pages = bt[2, :npages].long()
+    kp[pages] = k[row, :npages * PAGE].reshape(npages, PAGE, KV, HD)
+    vp[pages] = v[row, :npages * PAGE].reshape(npages, PAGE, KV, HD)
+    lp = torch.tensor([17, 33, n, 250], dtype=torch.int32, device="cuda")
+    paged = ops.paged_decode_attention(q[[row, 0, row, 1]].contiguous(), kp, vp, bt, lp)[2]
+    torch.cuda.synchronize()
+    if not (torch.equal(batch, alone) and torch.equal(batch, paged)):
+        raise AssertionError(f"decode row invariance broken ({dtype})")
+    log(f"  row invariance         {str(dtype):14s} length {n}: alone (S=512), in a batch "
+        f"of {SLOTTED_B} (S={MAX_SEQ}) and paged (PP={PP}) bit-equal")
+
+
 def time_decode(B, h, kv, hd, dtype, gen, flush: L2Flush) -> dict:
     """Times the slotted decode kernel, its plain version and
     scaled_dot_product_attention on one set of inputs of batch ``B``."""
@@ -225,7 +278,7 @@ def time_decode(B, h, kv, hd, dtype, gen, flush: L2Flush) -> dict:
         plain_ms=time_ms(lambda: ref.decode_attention_ref(q, k, v, ln), flush),
         library_ms=time_ms(lambda: sdpa_gqa(qt, kt, vt, attn_mask=mask), flush),
         bytes=2 * q.numel() * es + 2 * tok * kv * hd * es + 4 * B,
-        flops=4 * h * hd * tok, dtype=dtype)
+        flops=4 * h * hd * tok, dtype=dtype, rate="bytes")
 
 
 def kernels_phase(flush: L2Flush) -> dict:
@@ -250,10 +303,7 @@ def kernels_phase(flush: L2Flush) -> dict:
             records["decode_attention"] = dict(
                 max_abs_err=err, **time_decode(B, h, kv, hd, dtype, gen, flush))
             at_cap = time_decode(SLOTTED_B, h, kv, hd, dtype, gen, flush)
-            at_cap["bound_ms"], _ = bound(at_cap["bytes"], at_cap["flops"], dtype)
-            records["decode_attention"]["at_capacity"] = dict(
-                B=SLOTTED_B, **{key: at_cap[key] for key in
-                                ("ms", "plain_ms", "library_ms", "bound_ms")})
+            records["decode_attention"]["at_capacity"] = dict(B=SLOTTED_B, **finish(at_cap))
             log(f"  decode_attention at B={SLOTTED_B}: " + json.dumps(
                 records["decode_attention"]["at_capacity"]))
 
@@ -272,6 +322,8 @@ def kernels_phase(flush: L2Flush) -> dict:
         log(f"  paged_decode_attention {str(dtype):14s} B={B} page={PAGE} "
             f"PP={bt.shape[1]} H={h} KV={kv} hd={hd}: max abs err {err:.3e} "
             f"(bit-equal to the dense kernel on the gathered cache)")
+        if h == H:
+            row_invariance(dtype, gen)
         if main:
             tok = int(ln.sum())
             pages = int((-(-ln // PAGE)).sum())
@@ -281,11 +333,12 @@ def kernels_phase(flush: L2Flush) -> dict:
                 ms=time_ms(lambda: ops.paged_decode_attention(q, kp, vp, bt, ln), flush),
                 plain_ms=time_ms(
                     lambda: ref.paged_decode_attention_ref(q, kp, vp, bt, ln), flush),
-                library_ms=None, bytes=nbytes, flops=4 * h * hd * tok, dtype=dtype)
+                library_ms=None, bytes=nbytes, flops=4 * h * hd * tok, dtype=dtype,
+                rate="bytes")
 
-        # 3. prefill: the 512-token bucket of the serving path, plus a ragged
-        #    length with a 128 window
-        for S, window in ((512, 0), (333, 128)):
+        # 3. prefill: the 512- and 1024-token buckets of the serving path,
+        #    plus a ragged length with a 128 window
+        for S, window in ((512, 0), (1024, 0), (333, 128)):
             q, k, v = flash_inputs(1, S, h, kv, hd, dtype, gen)
             err = check("flash_attention",
                         ops.flash_attention(q, k, v, causal=True, window=window),
@@ -296,20 +349,27 @@ def kernels_phase(flush: L2Flush) -> dict:
             if main and window == 0:
                 pairs = S * (S + 1) // 2
                 qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-                records["flash_attention"] = dict(
+                rec = dict(
                     max_abs_err=err,
                     ms=time_ms(lambda: ops.flash_attention(q, k, v), flush),
                     plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), flush),
                     library_ms=time_ms(lambda: sdpa_gqa(qt, kt, vt, is_causal=True), flush),
                     # q and out (1, S, H, hd); k and v (1, S, KV, hd)
                     bytes=(2 * q.numel() + 2 * k.numel()) * es,
-                    flops=4 * h * hd * pairs, dtype=dtype)
+                    flops=4 * h * hd * pairs, dtype=dtype, rate="operations")
+                if S == 512:
+                    records["flash_attention"] = rec
+                else:
+                    records["flash_attention"]["at_s1024"] = dict(S=S, **finish(rec))
+                    log(f"  flash_attention at S={S}: "
+                        + json.dumps(records["flash_attention"]["at_s1024"]))
         del q, k, v
         torch.cuda.empty_cache()
     for name, r in records.items():
-        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"], r["dtype"])
-        log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}"
+        finish(r)
+        log(f"  {name}: kernel {r['ms']:.4f} ms ({r['achieved']}), plain "
+            f"{r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}"
             f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes']} B, "
             f"{r['flops']} flop)")
     return records
@@ -457,8 +517,8 @@ def main() -> int:
                                 for layout, counts in by_layout.items()},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"],
-         **({"at_capacity": r["at_capacity"]} if "at_capacity" in r else {})}
+         "library_ms": r["library_ms"], "achieved": r["achieved"],
+         **{key: r[key] for key in ("at_capacity", "at_s1024") if key in r}}
         for name, r in records.items()]}
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(json.dumps(line))

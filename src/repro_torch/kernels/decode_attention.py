@@ -3,7 +3,9 @@
 ``decode_attention_cuda`` attends one new query per sequence over a dense
 cache; ``paged_decode_attention_cuda`` over a paged pool through a block
 table.  They check device, dtype, shape, contiguity and alignment, allocate
-the output, and launch on PyTorch's current stream.  They take CUDA tensors
+the output and the split-KV scratch, and launch on PyTorch's current
+stream (two CUDA kernels per call: one CTA per 128-position chunk, then
+the log-sum-exp combine).  They take CUDA tensors
 only; :mod:`repro_torch.kernels.ops` routes CPU tensors to the plain
 versions.
 """
@@ -16,6 +18,8 @@ from .build import library
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 16
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Positions per split-KV chunk; the kernel checks that it is its own kChunk.
+CHUNK = 128
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -56,6 +60,15 @@ def raise_on_error(name: str, rc: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
+def split_scratch(q: torch.Tensor, cap: int) -> torch.Tensor:
+    """Float scratch for the partial (acc, m, l) of every chunk of a cache
+    of ``cap`` positions."""
+    B, H, hd = q.shape
+    nchunks = -(-cap // CHUNK)
+    return torch.empty(B * H * nchunks * (hd + 2), dtype=torch.float32,
+                       device=q.device)
+
+
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, lengths: torch.Tensor
                           ) -> torch.Tensor:
@@ -72,9 +85,11 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     code = check_attention_dtype(name, q, k_cache, v_cache)
     check_cuda(name, q, k_cache, v_cache, lengths)
     out = torch.empty_like(q)
+    scratch = split_scratch(q, S)
     rc = library().repro_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), B, H, KV, S, hd, code, current_stream())
+        lengths.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        B, H, KV, S, hd, CHUNK, code, current_stream())
     raise_on_error(name, rc)
     return out
 
@@ -101,9 +116,10 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     check_cuda(name, q, k_pool, v_pool, block_tables, lengths)
     PP = block_tables.shape[1]
     out = torch.empty_like(q)
+    scratch = split_scratch(q, PP * page)
     rc = library().repro_paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, H, KV, page, PP, hd, code, current_stream())
+        scratch.data_ptr(), B, H, KV, page, PP, hd, CHUNK, code, current_stream())
     raise_on_error(name, rc)
     return out

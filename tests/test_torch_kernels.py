@@ -10,6 +10,7 @@ and go to both frameworks as the same values.
 card; they skip on a host without one.  JAX is imported by a fixture, so
 this file also collects on a machine that has the card but no JAX.
 """
+import math
 import types
 
 import numpy as np
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.decode_attention import CHUNK
 
 TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -179,6 +181,55 @@ def test_paged_plain_matches_dense_plain_on_gathered_cache():
     np.testing.assert_allclose(paged.numpy(), dense.numpy(), rtol=2e-4, atol=2e-4)
 
 
+def _split_kv_decode(q, k, v, lengths, chunk):
+    """The decode kernel's algebra in plain torch: each chunk of ``chunk``
+    positions at fixed boundaries keeps its own (m, l, acc); a chunk at or
+    past the length contributes nothing; the chunks merge in chunk order by
+    the log-sum-exp rule; out = acc / max(l, 1e-30)."""
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    kk = k.repeat_interleave(G, dim=2).float()
+    vv = v.repeat_interleave(G, dim=2).float()
+    out = torch.zeros(B, H, hd)
+    for b in range(B):
+        n = int(lengths[b])
+        parts = []
+        for c in range(-(-S // chunk)):
+            lo, hi = c * chunk, min((c + 1) * chunk, n)
+            if lo >= hi:
+                continue
+            s = torch.einsum("hd,shd->hs", q[b].float(), kk[b, lo:hi]) / math.sqrt(hd)
+            m = s.max(dim=1).values
+            p = torch.exp(s - m[:, None])
+            parts.append((m, p.sum(dim=1), torch.einsum("hs,shd->hd", p, vv[b, lo:hi])))
+        big_m = torch.stack([m for m, _, _ in parts]).max(dim=0).values
+        w = [torch.exp(m - big_m) for m, _, _ in parts]
+        l = sum(l_c * w_c for (_, l_c, _), w_c in zip(parts, w))
+        acc = sum(a_c * w_c[:, None] for (_, _, a_c), w_c in zip(parts, w))
+        out[b] = acc / l.clamp_min(1e-30)[:, None]
+    return out
+
+
+# (chunk, S, lengths): the kernel's chunk with a length on a chunk boundary,
+# one past it, one short of it and empty trailing chunks; a smaller chunk
+# with ragged and boundary lengths
+SPLIT_CASES = [
+    (CHUNK, 640, [1, CHUNK - 1, CHUNK, CHUNK + 1, 640]),
+    (64, 200, [64, 1, 130, 200]),
+]
+
+
+@pytest.mark.parametrize("chunk,S,lengths", SPLIT_CASES)
+def test_split_kv_combine_matches_plain_and_jax_oracle(jx, chunk, S, lengths):
+    q, kc, vc, ln = _decode_inputs(12, len(lengths), S, 4, 2, 32, lengths)
+    got = _split_kv_decode(*(torch.from_numpy(a) for a in (q, kc, vc)), ln, chunk)
+    plain = ref.decode_attention_ref(*(torch.from_numpy(a) for a in (q, kc, vc, ln)))
+    oracle = jx.ref.decode_attention_ref(*(jx.jnp.asarray(a) for a in (q, kc, vc, ln)))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), _np(oracle), rtol=1e-5, atol=1e-5)
+
+
 def test_cpu_tensors_never_count_launches():
     ops.reset_launches()
     q, k, v = (torch.from_numpy(a) for a in _qkv(4, 1, 32, 4, 2, 32))
@@ -240,3 +291,68 @@ def test_cuda_paged_decode_matches_plain_and_dense_kernel(cuda, dtype, H, KV, hd
     np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **TOL[dtype])
     # one template, one order of operations: the two kernels agree exactly
     assert torch.equal(got, dense)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,H,KV,hd", GPU_HEADS)
+def test_cuda_decode_chunk_edges(cuda, dtype, H, KV, hd):
+    """Lengths on either side of the split-KV chunk boundary and the full
+    cache."""
+    S = 1024
+    lengths = [1, CHUNK - 1, CHUNK, CHUNK + 1, S]
+    q, kc, vc, ln = _decode_inputs(8, len(lengths), S, H, KV, hd, lengths)
+    args = [_t(a, dtype, cuda) for a in (q, kc, vc)]
+    lengths = torch.from_numpy(ln).to(cuda)
+    got = ops.decode_attention(*args, lengths)
+    want = ref.decode_attention_ref(*args, lengths)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_decode_row_invariance(cuda, dtype):
+    """A row's output depends only on its own query, cache and length: alone
+    over a shorter cache, inside a batch of 35 at S = 1024, and through the
+    paged kernel at a pow2 page count, the results are bit-equal."""
+    B, S, H, KV, hd, page, row, n = 35, 1024, 32, 8, 128, 16, 5, 300
+    rng = np.random.default_rng(9)
+    lengths = rng.integers(1, S + 1, B).astype(np.int32)
+    lengths[row] = n
+    q, kc, vc, ln = _decode_inputs(9, B, S, H, KV, hd, lengths)
+    q, kc, vc = (_t(a, dtype, cuda) for a in (q, kc, vc))
+    ln = torch.from_numpy(ln).to(cuda)
+    batch = ops.decode_attention(q, kc, vc, ln)[row]
+    alone = ops.decode_attention(q[row:row + 1].clone(), kc[row:row + 1, :512].contiguous(),
+                                 vc[row:row + 1, :512].contiguous(), ln[row:row + 1].clone())[0]
+    # the row's pages scattered over a pool; 4 rows (pow2), 32 pages (pow2)
+    PP, npages = 32, -(-n // page)
+    perm = torch.from_numpy(rng.permutation(4 * PP)).to(cuda)
+    kp = torch.randn(4 * PP + 1, page, KV, hd, device=cuda).to(q.dtype)
+    vp = torch.randn(4 * PP + 1, page, KV, hd, device=cuda).to(q.dtype)
+    bt = torch.full((4, PP), -1, dtype=torch.int32, device=cuda)
+    for r in range(4):
+        bt[r, :npages] = perm[r * PP:r * PP + npages].to(torch.int32)
+    pages = bt[2, :npages].long()
+    kp[pages] = kc[row, :npages * page].reshape(npages, page, KV, hd)
+    vp[pages] = vc[row, :npages * page].reshape(npages, page, KV, hd)
+    qp = q[[row, 0, row, 1]].contiguous()
+    lp = torch.tensor([17, 33, n, 250], dtype=torch.int32, device=cuda)
+    paged = ops.paged_decode_attention(qp, kp, vp, bt, lp)[2]
+    torch.cuda.synchronize()
+    assert torch.equal(batch, alone)
+    assert torch.equal(batch, paged)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,KV,hd", [(32, 8, 128), (8, 8, 64), (4, 2, 32)])
+def test_cuda_flash_serving_shapes(cuda, dtype, H, KV, hd):
+    """A ragged length with a 128 window, and the serving path's largest
+    prefill bucket (S = 1024)."""
+    for S, window in ((333, 128), (1024, 0)):
+        q, k, v = (_t(a, dtype, cuda) for a in _qkv(10, 1, S, H, KV, hd))
+        got = ops.flash_attention(q, k, v, causal=True, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **TOL[dtype])
