@@ -21,14 +21,21 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     and flash at S = 512 and 1024, the serving path's largest prefill
     buckets.  Asserts that one row decoded alone, inside a batch of 35 and
     through the paged kernel at a pow2 page count is bit-equal (the
-    split-KV chunks sit at fixed positions).
+    split-KV chunks sit at fixed positions), and that the dense kernel with
+    a row map (``rows``, the pipeline's slotted addressing) is bit-equal to
+    the kernel on the gathered rows; times the row map at B = 16 and 35 on
+    a capacity-35 cache beside ``rows=None``.
  4. Serve: the port's serving entry point (launch/serve.py) at qwen3-8b
     full width in bfloat16 (random weights from a seed): 6 logical servers
     composed into chains, 16 requests with prompts of 100-600 tokens and 32
     new tokens each, max_seq 1024, once with the slotted and once with the
-    paged KV layout.
+    paged KV layout; then through the pipeline engine (each chain's hops
+    run as stages), slotted with 4 stages a chain and 2 microbatches, and
+    paged with one stage per hop and 2 microbatches.  The slotted
+    pipeline's peak device memory must stay within 1 GiB of the monolithic
+    slotted run's (a gathered cache would add GBs).
     Launch counts are zeroed before and read after each run; the kernels
-    line gives their sum as ``launches`` and each layout's count under
+    line gives their sum as ``launches`` and each run's count under
     ``launches_by_layout``.  Prefill and
     decode logits of two prompts are held against ``forward_train`` over
     the extended sequence at the repo's bf16 tolerance (rtol = atol 6e-2,
@@ -36,8 +43,14 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     on the model's first 4 layers, reported at all 36.
  5. Float32, TF32 off: the logits check of phase 4 at full width and
     depth (36 layers), held at rtol = atol 1e-3; then the same composition
-    at full width and 4 layers, where the slotted and paged engines must
-    produce identical greedy streams.
+    at full width and 4 layers, where the slotted and paged engines and
+    the pipeline engine (slotted, 4 stages, 4 microbatches; paged, one
+    stage per hop, 2 microbatches) must produce identical greedy streams.
+    One more paged pipeline run fails a server after 40 decode rounds
+    (``--fail-after``) and must serve every request; whether its streams
+    equal the run without a failure is reported, not asserted (a
+    re-prefill runs flash where the first pass decoded, so a near-tie may
+    flip).
 
 The last three lines are the ``{"kernels": [...]}`` JSON line, the card's
 name and power limit as nvidia-smi gives them, and
@@ -70,6 +83,12 @@ BF16_MODEL_TOL = 6e-2                      # tests/test_models_smoke.py
 F32_MODEL_TOL = 1e-3       # float32 at full depth; the CPU tests use 1e-4 at 2 layers
 MAX_SEQ, PAGE = 1024, 16
 SLOTTED_B = 35       # capacity of the slotted chains srv0 / srv3 in phase 4
+PIPELINE_RUNS = {    # phase 4's pipeline runs: layout, stages a chain, microbatches
+    "pipeline_slotted": ("slotted", 4, 2),
+    "pipeline_paged": ("paged", None, 2),
+}
+MEMORY_SLACK = 1 << 30     # slotted pipeline peak vs monolithic slotted peak
+FAIL_AFTER = 40            # phase 5's failover run
 H, KV, HD = 32, 8, 128                     # qwen3-8b attention
 SEED = 0
 REPLACES = {
@@ -265,6 +284,37 @@ def row_invariance(dtype, gen) -> None:
         f"of {SLOTTED_B} (S={MAX_SEQ}) and paged (PP={PP}) bit-equal")
 
 
+def rows_phase(dtype, gen, flush: L2Flush, timed: bool) -> dict:
+    """The dense kernel with a row map over a capacity-SLOTTED_B cache (the
+    slotted pipeline's addressing) against the same kernel on the gathered
+    rows: bit-equal.  With ``timed``, the row map's time at B = 16 and 35
+    beside ``rows=None`` on a cache of B rows."""
+    out = {}
+    _, k, v, _ = decode_inputs(SLOTTED_B, MAX_SEQ, H, KV, HD, dtype, gen)
+    for B in (16, SLOTTED_B):
+        q = randn((B, H, HD), dtype, gen)
+        ln = torch.randint(100, 633, (B,), generator=gen, device="cuda").to(torch.int32)
+        ln[0], ln[-1] = 1, MAX_SEQ
+        rows = torch.randperm(SLOTTED_B, generator=gen, device="cuda")[:B].to(torch.int32)
+        kg, vg = k[rows.long()].contiguous(), v[rows.long()].contiguous()
+        got = ops.decode_attention(q, k, v, ln, rows)
+        want = ops.decode_attention(q, kg, vg, ln)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"decode with rows differs from the gathered decode "
+                                 f"({dtype}, B={B})")
+        if timed:
+            out[f"B{B}"] = dict(
+                rows_ms=time_ms(lambda: ops.decode_attention(q, k, v, ln, rows), flush),
+                none_ms=time_ms(lambda: ops.decode_attention(q, kg, vg, ln), flush))
+        log(f"  decode rows            {str(dtype):14s} B={B} of a {SLOTTED_B}-row cache: "
+            f"bit-equal to the gathered decode"
+            + (f"; rows {out[f'B{B}']['rows_ms']:.4f} ms, rows=None "
+               f"{out[f'B{B}']['none_ms']:.4f} ms" if timed else ""))
+        del kg, vg
+    return out
+
+
 def time_decode(B, h, kv, hd, dtype, gen, flush: L2Flush) -> dict:
     """Times the slotted decode kernel, its plain version and
     scaled_dot_product_attention on one set of inputs of batch ``B``."""
@@ -324,6 +374,9 @@ def kernels_phase(flush: L2Flush) -> dict:
             f"(bit-equal to the dense kernel on the gathered cache)")
         if h == H:
             row_invariance(dtype, gen)
+            rows = rows_phase(dtype, gen, flush, timed=main)
+            if main:
+                records["decode_attention"]["rows"] = rows
         if main:
             tok = int(ln.sum())
             pages = int((-(-ln // PAGE)).sum())
@@ -379,14 +432,26 @@ def kernels_phase(flush: L2Flush) -> dict:
 # Phases 4-5: serving through the composed chains
 # ---------------------------------------------------------------------------
 
-def serve_once(model, params, layout, max_new):
+def serve_once(model, params, layout, max_new, parallelism="single", stages=None,
+               micro=1, fail_after=0):
     orch = serve.orchestrator(model, params, n_servers=6, rate=2.0,
-                              max_seq=MAX_SEQ, kv_layout=layout)
+                              max_seq=MAX_SEQ, kv_layout=layout, parallelism=parallelism,
+                              pipeline_stages=stages, microbatches=micro)
     reqs = serve.make_requests(SEED, 16, model.cfg.vocab_size, 100, 600, max_new, 2.0)
-    ops.reset_launches()
-    summary = serve.run(orch, reqs)
-    launches = dict(ops.LAUNCHES)
     chains = serve.describe(orch)
+    if parallelism == "pipeline":
+        two_hop = next((e for e in orch.engines if len(e.chain.blocks) > 1), None)
+        if two_hop is not None and torch.cuda.device_count() >= 2:
+            if len(set(two_hop.devices[:2])) != 2:
+                raise AssertionError(f"two-hop chain stages share a card: {two_hop.devices}")
+            chains.append(f"  {torch.cuda.device_count()} cards: the two-hop chain's "
+                          f"stages run on {sorted(map(str, set(two_hop.devices)))}")
+        else:
+            chains.append(f"  {torch.cuda.device_count()} card(s): every stage runs on "
+                          f"{orch.engines[0].devices[0]}")
+    ops.reset_launches()
+    summary = serve.run(orch, reqs, fail_after=fail_after)
+    launches = dict(ops.LAUNCHES)
     del orch
     gc.collect()
     torch.cuda.empty_cache()
@@ -424,24 +489,37 @@ def serve_phase() -> dict:
         f"{cfg.num_heads}/{cfg.num_kv_heads} heads, hd {cfg.hd}, d_ff {cfg.d_ff}, "
         f"vocab {cfg.vocab_size}) {cfg.dtype}; {cfg.total_param_count()} parameters "
         f"initialised in {time.perf_counter() - t0:.1f} s")
-    by_layout = {}
-    for layout in ("slotted", "paged"):
+    by_layout, peak = {}, {}
+    runs = {"slotted": ("slotted", "single", None, 1),
+            "paged": ("paged", "single", None, 1),
+            **{name: (layout, "pipeline", stages, micro)
+               for name, (layout, stages, micro) in PIPELINE_RUNS.items()}}
+    for name, (layout, parallelism, stages, micro) in runs.items():
         torch.cuda.reset_peak_memory_stats()
-        reqs, summary, launches, chains = serve_once(model, params, layout, 32)
+        reqs, summary, launches, chains = serve_once(model, params, layout, 32,
+                                                     parallelism, stages, micro)
+        peak[name] = torch.cuda.max_memory_allocated()
         for line in chains:
-            log(f"  [{layout}] {line}")
+            log(f"  [{name}] {line}")
         bad = [r.rid for r in reqs if r.state.value != "done" or len(r.output) != 32]
         if bad:
-            raise AssertionError(f"[{layout}] requests not served in full: {bad}")
+            raise AssertionError(f"[{name}] requests not served in full: {bad}")
+        # the monolithic slotted chains decode through the dense kernel, the
+        # paged ones through the paged kernel (their admissions' boundary
+        # fixups use the dense one); the slotted pipeline only the dense one
         if launches["flash_attention"] == 0 or launches["decode_attention"] == 0 or \
                 (layout == "paged") != (launches["paged_decode_attention"] > 0):
-            raise AssertionError(f"[{layout}] kernels not on the path: {launches}")
-        log(f"  [{layout}] served {summary['finished']}/{summary['requests']} requests, "
+            raise AssertionError(f"[{name}] kernels not on the path: {launches}")
+        log(f"  [{name}] served {summary['finished']}/{summary['requests']} requests, "
             f"{summary['generated_tokens']} tokens in {summary['wall_s']:.3f} s wall "
             f"({summary['tokens_per_s']:.2f} tokens/s, {summary['rounds']} decode rounds), "
-            f"max_memory_allocated {torch.cuda.max_memory_allocated()} B, "
-            f"launches {launches}")
-        by_layout[layout] = launches
+            f"max_memory_allocated {peak[name]} B, launches {launches}")
+        by_layout[name] = launches
+    over = peak["pipeline_slotted"] - peak["slotted"]
+    log(f"  pipeline_slotted peak - slotted peak: {over} B (limit {MEMORY_SLACK} B)")
+    if over > MEMORY_SLACK:
+        raise AssertionError(f"slotted pipeline peak {peak['pipeline_slotted']} B exceeds "
+                             f"the monolithic slotted peak {peak['slotted']} B by {over} B")
     # The repo holds prefill/decode logits to forward_train at its bf16
     # tolerance on 4-layer configs (tests/test_models_smoke.py); the check
     # is asserted at that depth (full width, the model's first 4 layers)
@@ -481,18 +559,39 @@ def f32_phase() -> None:
     model = Model(dataclasses.replace(cfg, num_layers=4), "cuda")
     shallow = dict(params, layers=params["layers"][:4])
     streams = {}
-    for layout in ("slotted", "paged"):
-        reqs, summary, launches, _ = serve_once(model, shallow, layout, 32)
-        if summary["finished"] != len(reqs):
-            raise AssertionError(f"[f32 {layout}] {summary}")
-        streams[layout] = [r.output for r in reqs]
-    if streams["slotted"] != streams["paged"]:
-        diff = [i for i, (a, b) in enumerate(zip(streams["slotted"], streams["paged"]))
-                if a != b]
-        raise AssertionError(f"f32 slotted and paged streams differ for requests {diff}")
-    log(f"f32: qwen3-8b full width, 4 layers, float32, TF32 off: slotted == paged "
-        f"greedy streams for all {len(streams['paged'])} requests "
+    runs = {"slotted": ("slotted", "single", None, 1, 0),
+            "paged": ("paged", "single", None, 1, 0),
+            "pipeline_slotted": ("slotted", "pipeline", 4, 4, 0),
+            "pipeline_paged": ("paged", "pipeline", None, 2, 0),
+            "pipeline_paged_failover": ("paged", "pipeline", None, 2, FAIL_AFTER)}
+    for name, (layout, parallelism, stages, micro, fail_after) in runs.items():
+        reqs, summary, launches, _ = serve_once(model, shallow, layout, 32, parallelism,
+                                                stages, micro, fail_after)
+        if summary["finished"] != len(reqs) or \
+                any(r.state.value != "done" or len(r.output) != 32 for r in reqs):
+            raise AssertionError(f"[f32 {name}] {summary}")
+        if fail_after and "failed_server" not in summary:
+            raise AssertionError(f"[f32 {name}] no server failed: {summary}")
+        streams[name] = [r.output for r in reqs]
+        log(f"f32: [{name}] served {summary['finished']}/{summary['requests']}, "
+            f"{summary['rounds']} decode rounds"
+            + (f", server {summary['failed_server']} failed at round "
+               f"{summary['failed_at_round']}: {summary['requeued']} re-queued, "
+               f"{summary['chains_after']} chains after" if fail_after else ""))
+    for name in ("paged", "pipeline_slotted", "pipeline_paged"):
+        if streams[name] != streams["slotted"]:
+            diff = [i for i, (a, b) in enumerate(zip(streams["slotted"], streams[name]))
+                    if a != b]
+            raise AssertionError(f"f32 {name} streams differ from slotted for requests {diff}")
+    log(f"f32: qwen3-8b full width, 4 layers, float32, TF32 off: slotted == paged == "
+        f"pipeline slotted (4 stages, 4 microbatches) == pipeline paged (per hop, 2 "
+        f"microbatches) greedy streams for all {len(streams['paged'])} requests "
         f"({sum(map(len, streams['paged']))} tokens)")
+    same = [a == b for a, b in zip(streams["pipeline_paged_failover"],
+                                   streams["pipeline_paged"])]
+    log(f"f32: failover run (server failed after {FAIL_AFTER} rounds): streams equal the "
+        f"run without a failure for {sum(same)}/{len(same)} requests (reported, not "
+        f"asserted)")
     del params, shallow, model, full
     gc.collect()
     torch.cuda.empty_cache()
@@ -518,7 +617,7 @@ def main() -> int:
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"], "achieved": r["achieved"],
-         **{key: r[key] for key in ("at_capacity", "at_s1024") if key in r}}
+         **{key: r[key] for key in ("at_capacity", "at_s1024", "rows") if key in r}}
         for name, r in records.items()]}
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(json.dumps(line))

@@ -34,7 +34,7 @@ _VOID_P = ctypes.c_void_p
 _INT = ctypes.c_int
 # argtypes of each exported C entry; every pointer and the stream are void*
 SIGNATURES = {
-    "repro_decode_attention": [_VOID_P] * 6 + [_INT] * 7 + [_VOID_P],
+    "repro_decode_attention": [_VOID_P] * 7 + [_INT] * 8 + [_VOID_P],
     "repro_paged_decode_attention": [_VOID_P] * 7 + [_INT] * 8 + [_VOID_P],
     "repro_flash_attention": [_VOID_P] * 4 + [_INT] * 9 + [_VOID_P],
 }

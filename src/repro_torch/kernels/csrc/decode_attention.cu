@@ -6,6 +6,9 @@
 // Both are one template here; they differ only in how a key position maps
 // to a cache row (contiguous per sequence, or through the block table), so
 // the dense and the paged kernel do the same arithmetic in the same order.
+// The dense addressing may also take a row map: query row b then reads cache
+// row rows[b], so a pipeline stage decodes a microbatch of its slots in place
+// instead of gathering their cache rows first.
 //
 // What bounds it on the H100: bytes.  Each (sequence, KV group) reads its
 // lengths[b] keys and values once; at G query rows per group that is
@@ -117,9 +120,10 @@ decode_chunk_kernel(const T* __restrict__ q,            // (B, H, HD)
                     const T* __restrict__ k,            // dense (B, S, KV, HD) | paged (P, page, KV, HD)
                     const T* __restrict__ v,
                     const int* __restrict__ block_tables,  // paged: (B, PP)
+                    const int* __restrict__ rows,          // dense: (B,) cache rows, or null
                     const int* __restrict__ lengths,       // (B,)
                     float* __restrict__ part,           // scratch, see part_acc / part_ml
-                    int H, int KV, int S, int page, int PP, float scale) {
+                    int H, int KV, int S, int nrows, int page, int PP, float scale) {
   static_assert(HD % 32 == 0 && HD <= 2 * kThreads, "head_dim must be 32, 64 or 128");
   using R = Ring<T, HD>;
   constexpr int kVec = 16 / sizeof(T);      // elements per 16-byte unit
@@ -142,7 +146,14 @@ decode_chunk_kernel(const T* __restrict__ q,            // (B, H, HD)
   const int c = blockIdx.x, nchunks = gridDim.x;
   const int bkv = blockIdx.y, b = bkv / KV, kv = bkv % KV;
   const int cap = PAGED ? PP * page : S;
+  // The dense cache holds nrows rows; query row b reads cache row rows[b]
+  // (b when rows is null), so a pipeline stage decodes any subset of its
+  // slots in place.  A row outside [0, nrows) reads row 0, as a negative
+  // page reads page 0.  Loaded beside lengths[b], so the two global reads
+  // overlap instead of adding a second round trip before the first copy.
+  int crow = (!PAGED && rows != nullptr) ? rows[b] : b;
   int len = lengths[b];
+  crow = (crow < 0 || crow >= nrows) ? 0 : crow;
   len = len < 0 ? 0 : (len > cap ? cap : len);
   const int c0 = c * kChunk;
   if (c0 >= len) return;
@@ -158,7 +169,7 @@ decode_chunk_kernel(const T* __restrict__ q,            // (B, H, HD)
       pg = pg < 0 ? 0 : pg;
       row_s[i] = ((size_t)pg * page + pos % page) * KV + kv;
     } else {
-      row_s[i] = ((size_t)b * S + pos) * KV + kv;
+      row_s[i] = ((size_t)crow * S + pos) * KV + kv;
     }
   }
   __syncthreads();
@@ -335,9 +346,9 @@ decode_combine_kernel(float* __restrict__ part, const int* __restrict__ lengths,
 }
 
 template <typename T, int HD, int GP, bool PAGED>
-int launch_g(const T* q, const T* k, const T* v, const int* block_tables, const int* lengths,
-             T* out, float* part, int B, int H, int KV, int S, int page, int PP,
-             cudaStream_t stream) {
+int launch_g(const T* q, const T* k, const T* v, const int* block_tables, const int* rows,
+             const int* lengths, T* out, float* part, int B, int H, int KV, int S, int R,
+             int page, int PP, cudaStream_t stream) {
   const int G = H / KV;
   constexpr size_t bytes = smem_bytes<T, HD, GP>();
   auto kernel = decode_chunk_kernel<T, HD, GP, PAGED>;
@@ -347,7 +358,8 @@ int launch_g(const T* q, const T* k, const T* v, const int* block_tables, const 
   const int cap = PAGED ? PP * page : S;
   const int nchunks = (cap + kChunk - 1) / kChunk;
   kernel<<<dim3((unsigned)nchunks, (unsigned)(B * KV)), kThreads, bytes, stream>>>(
-      q, k, v, block_tables, lengths, part, H, KV, S, page, PP, 1.0f / sqrtf((float)HD));
+      q, k, v, block_tables, rows, lengths, part, H, KV, S, R, page, PP,
+      1.0f / sqrtf((float)HD));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t cbytes = sizeof(float) * ((size_t)2 * nchunks * G + G);
@@ -362,30 +374,30 @@ int launch_g(const T* q, const T* k, const T* v, const int* block_tables, const 
 }
 
 template <typename T, int HD, bool PAGED>
-int launch_hd(const T* q, const T* k, const T* v, const int* block_tables, const int* lengths,
-              T* out, float* part, int B, int H, int KV, int S, int page, int PP,
-              cudaStream_t stream) {
+int launch_hd(const T* q, const T* k, const T* v, const int* block_tables, const int* rows,
+              const int* lengths, T* out, float* part, int B, int H, int KV, int S, int R,
+              int page, int PP, cudaStream_t stream) {
   const int G = H / KV;
   if (G <= 2)
-    return launch_g<T, HD, 2, PAGED>(q, k, v, block_tables, lengths, out, part, B, H, KV, S,
-                                     page, PP, stream);
+    return launch_g<T, HD, 2, PAGED>(q, k, v, block_tables, rows, lengths, out, part, B, H,
+                                     KV, S, R, page, PP, stream);
   if (G <= 4)
-    return launch_g<T, HD, 4, PAGED>(q, k, v, block_tables, lengths, out, part, B, H, KV, S,
-                                     page, PP, stream);
+    return launch_g<T, HD, 4, PAGED>(q, k, v, block_tables, rows, lengths, out, part, B, H,
+                                     KV, S, R, page, PP, stream);
   if (G <= 8)
-    return launch_g<T, HD, 8, PAGED>(q, k, v, block_tables, lengths, out, part, B, H, KV, S,
-                                     page, PP, stream);
-  return launch_g<T, HD, 16, PAGED>(q, k, v, block_tables, lengths, out, part, B, H, KV, S,
-                                    page, PP, stream);
+    return launch_g<T, HD, 8, PAGED>(q, k, v, block_tables, rows, lengths, out, part, B, H,
+                                     KV, S, R, page, PP, stream);
+  return launch_g<T, HD, 16, PAGED>(q, k, v, block_tables, rows, lengths, out, part, B, H,
+                                    KV, S, R, page, PP, stream);
 }
 
 template <typename T, bool PAGED>
 int launch(const void* q, const void* k, const void* v, const int* block_tables,
-           const int* lengths, void* out, void* scratch, int B, int H, int KV, int S, int page,
-           int PP, int hd, int chunk, cudaStream_t stream) {
+           const int* rows, const int* lengths, void* out, void* scratch, int B, int H, int KV,
+           int S, int R, int page, int PP, int hd, int chunk, cudaStream_t stream) {
   if (B <= 0 || KV <= 0 || H % KV != 0 || H / KV > kMaxG || B * KV > 65535 || chunk != kChunk)
     return (int)cudaErrorInvalidValue;
-  if (PAGED ? (page <= 0 || PP <= 0) : S <= 0) return (int)cudaErrorInvalidValue;
+  if (PAGED ? (page <= 0 || PP <= 0) : (S <= 0 || R <= 0)) return (int)cudaErrorInvalidValue;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -393,14 +405,14 @@ int launch(const void* q, const void* k, const void* v, const int* block_tables,
   float* part = static_cast<float*>(scratch);
   switch (hd) {
     case 32:
-      return launch_hd<T, 32, PAGED>(qt, kt, vt, block_tables, lengths, ot, part, B, H, KV, S,
-                                     page, PP, stream);
+      return launch_hd<T, 32, PAGED>(qt, kt, vt, block_tables, rows, lengths, ot, part, B,
+                                     H, KV, S, R, page, PP, stream);
     case 64:
-      return launch_hd<T, 64, PAGED>(qt, kt, vt, block_tables, lengths, ot, part, B, H, KV, S,
-                                     page, PP, stream);
+      return launch_hd<T, 64, PAGED>(qt, kt, vt, block_tables, rows, lengths, ot, part, B,
+                                     H, KV, S, R, page, PP, stream);
     case 128:
-      return launch_hd<T, 128, PAGED>(qt, kt, vt, block_tables, lengths, ot, part, B, H, KV,
-                                      S, page, PP, stream);
+      return launch_hd<T, 128, PAGED>(qt, kt, vt, block_tables, rows, lengths, ot, part, B,
+                                     H, KV, S, R, page, PP, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -411,19 +423,20 @@ int launch(const void* q, const void* k, const void* v, const int* block_tables,
 
 extern "C" {
 
-// Dense cache: q (B, H, hd); k, v (B, S, KV, hd); lengths (B,) int32.
-// scratch: B * KV * ceil(S / chunk) * (H / KV) * (hd + 2) floats; chunk must
-// be the kernel's chunk (128).
-int repro_decode_attention(const void* q, const void* k, const void* v, const int* lengths,
-                           void* out, void* scratch, int B, int H, int KV, int S, int hd,
-                           int chunk, int dtype, void* stream) {
+// Dense cache: q (B, H, hd); k, v (R, S, KV, hd); rows (B,) int32 cache row
+// of each query row, or null for rows[b] = b (then R >= B); lengths (B,)
+// int32.  scratch: B * KV * ceil(S / chunk) * (H / KV) * (hd + 2) floats;
+// chunk must be the kernel's chunk (128).
+int repro_decode_attention(const void* q, const void* k, const void* v, const int* rows,
+                           const int* lengths, void* out, void* scratch, int B, int H, int KV,
+                           int R, int S, int hd, int chunk, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32)
-    return repro::launch<float, false>(q, k, v, nullptr, lengths, out, scratch, B, H, KV, S, 0,
-                                       0, hd, chunk, st);
+    return repro::launch<float, false>(q, k, v, nullptr, rows, lengths, out, scratch, B, H, KV,
+                                       S, R, 0, 0, hd, chunk, st);
   if (dtype == repro::kBFloat16)
-    return repro::launch<__nv_bfloat16, false>(q, k, v, nullptr, lengths, out, scratch, B, H,
-                                               KV, S, 0, 0, hd, chunk, st);
+    return repro::launch<__nv_bfloat16, false>(q, k, v, nullptr, rows, lengths, out, scratch,
+                                               B, H, KV, S, R, 0, 0, hd, chunk, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -436,11 +449,12 @@ int repro_paged_decode_attention(const void* q, const void* k_pool, const void* 
                                  int chunk, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32)
-    return repro::launch<float, true>(q, k_pool, v_pool, block_tables, lengths, out, scratch,
-                                      B, H, KV, 0, page, PP, hd, chunk, st);
+    return repro::launch<float, true>(q, k_pool, v_pool, block_tables, nullptr, lengths, out,
+                                      scratch, B, H, KV, 0, 0, page, PP, hd, chunk, st);
   if (dtype == repro::kBFloat16)
-    return repro::launch<__nv_bfloat16, true>(q, k_pool, v_pool, block_tables, lengths, out,
-                                              scratch, B, H, KV, 0, page, PP, hd, chunk, st);
+    return repro::launch<__nv_bfloat16, true>(q, k_pool, v_pool, block_tables, nullptr, lengths,
+                                              out, scratch, B, H, KV, 0, 0, page, PP, hd, chunk,
+                                              st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -11,6 +11,8 @@ versions.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .build import library
@@ -70,26 +72,34 @@ def split_scratch(q: torch.Tensor, cap: int) -> torch.Tensor:
 
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
-                          v_cache: torch.Tensor, lengths: torch.Tensor
-                          ) -> torch.Tensor:
-    """q (B, H, hd); caches (B, S, KV, hd); lengths (B,) int32 -> (B, H, hd)."""
+                          v_cache: torch.Tensor, lengths: torch.Tensor,
+                          rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B, H, hd); caches (R, S, KV, hd); lengths (B,) int32;
+    rows (B,) int32, the cache row of each query row (``None``: row b reads
+    cache row b, and R == B) -> (B, H, hd).  A row outside ``[0, R)`` reads
+    row 0."""
     name = "decode_attention"
     B, H, hd = q.shape
-    S, KV = k_cache.shape[1], k_cache.shape[2]
-    if k_cache.shape != (B, S, KV, hd) or v_cache.shape != k_cache.shape:
+    R, S, KV = k_cache.shape[0], k_cache.shape[1], k_cache.shape[2]
+    if (rows is None and R != B) or k_cache.shape != (R, S, KV, hd) \
+            or v_cache.shape != k_cache.shape:
         raise ValueError(f"{name}: cache shapes {tuple(k_cache.shape)}, "
                          f"{tuple(v_cache.shape)} do not match q {tuple(q.shape)}")
     if lengths.shape != (B,) or lengths.dtype != torch.int32:
         raise ValueError(f"{name}: lengths must be ({B},) int32")
+    if rows is not None and (rows.shape != (B,) or rows.dtype != torch.int32):
+        raise ValueError(f"{name}: rows must be ({B},) int32")
     check_heads(name, H, KV, hd)
     code = check_attention_dtype(name, q, k_cache, v_cache)
-    check_cuda(name, q, k_cache, v_cache, lengths)
+    check_cuda(name, q, k_cache, v_cache, lengths,
+               *(() if rows is None else (rows,)))
     out = torch.empty_like(q)
     scratch = split_scratch(q, S)
     rc = library().repro_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        B, H, KV, S, hd, CHUNK, code, current_stream())
+        None if rows is None else rows.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(),
+        B, H, KV, R, S, hd, CHUNK, code, current_stream())
     raise_on_error(name, rc)
     return out
 

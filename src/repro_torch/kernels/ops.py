@@ -8,7 +8,7 @@ kernels (``chip_smoke.py`` zeroes the counts, serves, and reads them).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -39,12 +39,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, lengths: torch.Tensor
-                     ) -> torch.Tensor:
-    """q: (B, H, hd); caches: (B, S, KV, hd); lengths: (B,) -> (B, H, hd)."""
+                     v_cache: torch.Tensor, lengths: torch.Tensor,
+                     rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (B, H, hd); caches: (R, S, KV, hd); lengths: (B,); rows: (B,)
+    int32 cache row of each query row, ``None`` for row b -> (B, H, hd)."""
     if q.device.type == "cpu":
-        return ref.decode_attention_ref(q, k_cache, v_cache, lengths)
-    out = decode_attention_cuda(q, k_cache, v_cache, lengths)
+        return ref.decode_attention_ref(q, k_cache, v_cache, lengths, rows)
+    out = decode_attention_cuda(q, k_cache, v_cache, lengths, rows)
     LAUNCHES["decode_attention"] += 1
     return out
 

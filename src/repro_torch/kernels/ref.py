@@ -8,6 +8,7 @@ formulation.  CPU tensors take these functions on the serving path;
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -60,10 +61,15 @@ def paged_decode_attention_ref(
 
 def decode_attention_ref(
     q: torch.Tensor,              # (B, H, hd)
-    k_cache: torch.Tensor,        # (B, S, KV, hd)
-    v_cache: torch.Tensor,        # (B, S, KV, hd)
+    k_cache: torch.Tensor,        # (R, S, KV, hd)
+    v_cache: torch.Tensor,        # (R, S, KV, hd)
     lengths: torch.Tensor,        # (B,)
+    rows: Optional[torch.Tensor] = None,   # (B,) cache row of each query row
 ) -> torch.Tensor:
+    """``rows=None`` reads cache row b for query row b (R == B)."""
+    if rows is not None:
+        idx = rows.long().to(k_cache.device)
+        k_cache, v_cache = k_cache[idx], v_cache[idx]
     B, H, hd = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV

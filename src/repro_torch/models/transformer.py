@@ -217,18 +217,21 @@ def _qkv_decode(cfg: ModelConfig, p: Params, x_t: torch.Tensor,
 
 
 def dense_block_decode(cfg: ModelConfig, p: Params, x_t: torch.Tensor,
-                       lengths: torch.Tensor, cache: Cache) -> torch.Tensor:
-    """One token per row over a dense cache ``(B, Smax, KV, hd)``: the new
-    K/V are written at position ``lengths`` in place, then the decode
-    kernel attends over ``lengths + 1`` positions."""
+                       lengths: torch.Tensor, cache: Cache,
+                       rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One token per row over a dense cache ``(R, Smax, KV, hd)``: row b's
+    new K/V are written at ``(rows[b], lengths[b])`` in place, then the
+    decode kernel attends over ``lengths + 1`` positions of cache row
+    ``rows[b]``.  ``rows=None`` means row b (R == B).  Rows are addressed
+    in place: no cache row is gathered or scattered."""
     B = x_t.shape[0]
     q, k, v = _qkv_decode(cfg, p, x_t, lengths)
-    rows = torch.arange(B, device=x_t.device)
+    idx = torch.arange(B, device=x_t.device) if rows is None else rows.long()
     pos = lengths.long()
-    cache["k"][rows, pos] = k
-    cache["v"][rows, pos] = v
+    cache["k"][idx, pos] = k
+    cache["v"][idx, pos] = v
     out = ops.decode_attention(q, cache["k"], cache["v"],
-                               (lengths + 1).to(torch.int32))
+                               (lengths + 1).to(torch.int32), rows)
     return out.reshape(B, -1) @ p["wo"]
 
 
@@ -251,10 +254,11 @@ def dense_block_decode_paged(cfg: ModelConfig, p: Params, x_t: torch.Tensor,
 
 
 def block_decode(cfg: ModelConfig, kind: str, p: Params, x_t: torch.Tensor,
-                 lengths: torch.Tensor, cache: Cache) -> torch.Tensor:
+                 lengths: torch.Tensor, cache: Cache,
+                 rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     if kind != "dense":
         raise not_ported(kind)
-    x_t = x_t + dense_block_decode(cfg, p, x_t, lengths, cache)
+    x_t = x_t + dense_block_decode(cfg, p, x_t, lengths, cache, rows)
     return _ffn(cfg, p, x_t)
 
 

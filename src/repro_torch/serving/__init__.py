@@ -1,4 +1,5 @@
-"""Serving layer: live orchestrator, chain engines and KV caches."""
+"""Serving layer: live orchestrator, chain engines (monolithic and
+pipeline-parallel) and KV caches."""
 from .engine import ChainEngine, PagedChainEngine
 from .kv_cache import (
     PAGE_SIZE,
@@ -8,10 +9,12 @@ from .kv_cache import (
     service_spec_for,
 )
 from .orchestrator import Orchestrator, OrchestratorConfig
+from .pipeline import PipelineChainEngine, StageSpec, plan_stages
 from .request import Request, State
 
 __all__ = [
     "ChainEngine", "PagedChainEngine", "PAGE_SIZE", "PageAccounting",
     "PagedCache", "SlotCache", "service_spec_for", "Orchestrator",
-    "OrchestratorConfig", "Request", "State",
+    "OrchestratorConfig", "PipelineChainEngine", "Request", "StageSpec",
+    "State", "plan_stages",
 ]

@@ -75,16 +75,36 @@ def service_spec_for(
 class SlotCache:
     """Capacity-``c`` batched cache for one chain engine.  Slot i of every
     cache leaf (axis 1, after the per-stage layer axis) belongs to request i.
+
+    ``model`` is a ``Model`` or a ``LayerSlice``; the leaves go on
+    ``device`` (the model's by default).  ``materialize=False`` keeps the
+    slot accounting without leaves: a pipeline's master cache, whose leaves
+    live in the per-stage :meth:`leaf_range` views.
     """
 
-    def __init__(self, model, capacity: int, max_seq: int):
+    def __init__(self, model, capacity: int, max_seq: int, device=None,
+                 materialize: bool = True):
         self.model = model
         self.capacity = capacity
         self.max_seq = max_seq
-        self.cache = model.init_cache(capacity, max_seq)
+        self.device = model.device if device is None else torch.device(device)
+        self.cache = (model.init_cache(capacity, max_seq, self.device)
+                      if materialize else None)
         self.free: List[int] = list(range(capacity))
         self._active: set = set()
         self.lengths = np.zeros((capacity,), np.int32)
+
+    def leaf_range(self, model_slice, device=None) -> "SlotCache":
+        """A pipeline-stage view: its own cache leaves for ``model_slice``'s
+        layers, on ``device``, sharing this cache's slot accounting (free
+        list, active set, lengths) by reference, so an acquire or release
+        on any view or the master is seen by all."""
+        view = SlotCache(model_slice, self.capacity, self.max_seq,
+                         device=device)
+        view.free = self.free
+        view._active = self._active
+        view.lengths = self.lengths
+        return view
 
     def acquire(self) -> Optional[int]:
         if not self.free:
@@ -185,8 +205,10 @@ class PagedCache:
     """Paged KV cache: pooled fixed-size token pages + per-slot block tables.
 
     Every cache leaf is one pool ``(layers, total_pages + 1, page_size, KV,
-    hd)`` on the model's device; the final page is write-only scratch that
-    absorbs bucketed-prefill padding.  Host-side state (numpy): a
+    hd)`` on ``device`` (the model's by default); the final page is
+    write-only scratch that absorbs bucketed-prefill padding.
+    ``materialize=False`` keeps the accounting without pools (a pipeline's
+    master; see :meth:`leaf_range`).  Host-side state (numpy): a
     ``(num_slots, pages_per_slot)`` block table, a LIFO free-page stack,
     per-slot lengths.  Writes go into the pools in place, so admission
     costs O(prompt) and a decode write O(active).  Freed pages are returned
@@ -196,7 +218,8 @@ class PagedCache:
 
     def __init__(self, model, num_slots: int, max_seq: int,
                  page_size: int = PAGE_SIZE,
-                 total_pages: Optional[int] = None):
+                 total_pages: Optional[int] = None, device=None,
+                 materialize: bool = True):
         if page_size < 1 or (page_size & (page_size - 1)):
             raise ValueError(f"page_size must be a power of two, got {page_size}")
         if max_seq % page_size:
@@ -215,8 +238,11 @@ class PagedCache:
                 f"({self.pages_per_slot} pages)")
         self.total_pages = total_pages
         self.scratch_page = total_pages          # index of the write-only page
-        # (layers, B=total_pages+1, S=page_size, KV, hd) is the pool layout
-        self.pools = model.init_cache(total_pages + 1, page_size)
+        self.device = model.device if device is None else torch.device(device)
+        # (layers, B=total_pages+1, S=page_size, KV, hd) is the pool layout;
+        # an accounting-only master (materialize=False) holds no pools
+        self.pools = (model.init_cache(total_pages + 1, page_size, self.device)
+                      if materialize else None)
 
         self.block_table = np.full((num_slots, self.pages_per_slot), -1,
                                    np.int32)
@@ -225,6 +251,23 @@ class PagedCache:
         self.free: List[int] = list(range(num_slots))
         self._active: set = set()
         self._free_pages: List[int] = list(range(total_pages))
+
+    def leaf_range(self, model_slice, device=None) -> "PagedCache":
+        """A pipeline-stage view: its own pools for ``model_slice``'s layers,
+        on ``device``, sharing this cache's page accounting (block table,
+        pages used, free-page stack, lengths, slot free list, active set)
+        by reference.  Page ids are global, so one ``decode_view`` of the
+        master indexes every stage's pools alike."""
+        view = PagedCache(model_slice, self.num_slots, self.max_seq,
+                          page_size=self.page_size,
+                          total_pages=self.total_pages, device=device)
+        view.block_table = self.block_table
+        view.pages_used = self.pages_used
+        view.lengths = self.lengths
+        view.free = self.free
+        view._active = self._active
+        view._free_pages = self._free_pages
+        return view
 
     # -- accounting ------------------------------------------------------------
     @property
@@ -294,7 +337,7 @@ class PagedCache:
             raise ValueError(
                 f"pad_len {pad_len} must be a multiple of page_size "
                 f"{self.page_size}")
-        return self.model.init_cache(1, pad_len)
+        return self.model.init_cache(1, pad_len, self.device)
 
     def write_prefill(self, slot: int, cache_one: List[Dict[str, torch.Tensor]],
                       true_len: int) -> None:
