@@ -50,7 +50,25 @@ Phases; any failure ends the run with a non-zero exit and no result line:
     (``--fail-after``) and must serve every request; whether its streams
     equal the run without a failure is reported, not asserted (a
     re-prefill runs flash where the first pass decoded, so a near-tie may
-    flip).
+    flip).  Then phase 6's spec through the experiment API at the same 4
+    layers: the slotted, paged and pipeline-paged planes must produce
+    identical per-request greedy streams (every layout sees the same
+    events at the same rounds).  Whether the paged plane on the host's CPU
+    gives the same streams is reported, not asserted; that run comes last,
+    after phase 6, so its host load cannot touch the card's timings.
+ 6. Plane: the port's experiment API, ``repro_torch.api.run(spec,
+    plane=LivePlane(engine="torch", ...))``, at qwen3-8b full width and
+    depth in bfloat16: 6 logical servers, 16 Poisson requests (rate 2,
+    seed 0) with 128-token prompts and ``round(work * 32)`` new tokens
+    each, and a scenario that fails ``srv0`` at t = 2 s (requests in
+    flight) and adds it back at t = 4 s, on a simulated clock of 0.05 s a
+    decode round.  Three runs: slotted, paged, and pipeline-paged (one
+    stage per hop, 2 microbatches).  Each must serve all 16 requests in
+    full through the failure, log the re-queue and the recompositions,
+    and launch its layout's decode kernel and flash, and its events,
+    rounds and response quantiles on the simulated clock must equal those
+    of the model-free mock plane for the same spec; device memory is read
+    before, inside and after each scenario event.
 
 The last three lines are the ``{"kernels": [...]}`` JSON line, the card's
 name and power limit as nvidia-smi gives them, and
@@ -71,9 +89,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 import torch  # noqa: E402
 
+from repro_torch import api  # noqa: E402
+from repro_torch.core import Scenario  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.serving import Orchestrator, service_spec_for  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,      # dense tensor-core bf16
@@ -89,6 +110,15 @@ PIPELINE_RUNS = {    # phase 4's pipeline runs: layout, stages a chain, microbat
 }
 MEMORY_SLACK = 1 << 30     # slotted pipeline peak vs monolithic slotted peak
 FAIL_AFTER = 40            # phase 5's failover run
+PLANE_RUNS = {       # phases 5-6: LivePlane layout knobs
+    "plane_slotted": dict(kv_layout="slotted"),
+    "plane_paged": dict(kv_layout="paged"),
+    "plane_pipeline_paged": dict(kv_layout="paged", parallelism="pipeline",
+                                 microbatches=2),
+}
+PLANE = dict(dt=0.05, max_seq=1024, prompt_tokens=128, tokens_per_work=32.0)
+PLANE_FAIL_AT, PLANE_ADD_AT = 2.0, 4.0     # srv0 fails with requests in flight
+PLANE_REQUESTS = 16
 H, KV, HD = 32, 8, 128                     # qwen3-8b attention
 SEED = 0
 REPLACES = {
@@ -542,7 +572,7 @@ def serve_phase() -> dict:
     return by_layout
 
 
-def f32_phase() -> None:
+def f32_phase():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(serve.model_config("qwen3-8b"), dtype="float32")
@@ -592,9 +622,191 @@ def f32_phase() -> None:
     log(f"f32: failover run (server failed after {FAIL_AFTER} rounds): streams equal the "
         f"run without a failure for {sum(same)}/{len(same)} requests (reported, not "
         f"asserted)")
-    del params, shallow, model, full
+    del params, full       # shallow keeps the first 4 layers
     gc.collect()
     torch.cuda.empty_cache()
+    on_cpu = plane_f32(model, shallow)
+    del shallow, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return on_cpu
+
+
+# ---------------------------------------------------------------------------
+# Phases 5-6: the experiment API's live plane
+# ---------------------------------------------------------------------------
+
+def plane_spec(cfg) -> api.ExperimentSpec:
+    """6 logical servers; 16 Poisson requests; srv0 fails while requests are
+    in flight and rejoins."""
+    service = service_spec_for(cfg, max_seq=MAX_SEQ)
+    servers = tuple(serve.build_servers(cfg, service, 6))
+    scenario = Scenario(horizon=12.0).fail(PLANE_FAIL_AT, "srv0").add(
+        PLANE_ADD_AT, servers[0])
+    return api.ExperimentSpec(
+        cluster=api.ClusterSpec(servers=servers, service=service),
+        scenario=api.ScenarioSpec.from_scenario(scenario),
+        workload=api.WorkloadSpec(generator="poisson", base_rate=2.0,
+                                  params={"n": PLANE_REQUESTS}),
+        seed=SEED, name="chip-smoke-plane")
+
+
+class EventMemory:
+    """Device memory around each scenario event the plane applies: allocated
+    before, the peak while the orchestrator evicts, recomposes and builds
+    the new engines, and allocated after.  Wraps
+    ``Orchestrator.apply_scenario_event`` while active."""
+
+    def __init__(self):
+        self.events, self.peak_outside = [], 0
+
+    def __enter__(self):
+        apply = self._apply = Orchestrator.apply_scenario_event
+
+        def wrapped(orch, ev, now=0.0):
+            torch.cuda.synchronize()
+            self.peak_outside = max(self.peak_outside, torch.cuda.max_memory_allocated())
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = apply(orch, ev, now)
+            torch.cuda.synchronize()
+            self.events.append(dict(kind=ev.kind, at=now, before=before,
+                                    peak=torch.cuda.max_memory_allocated(),
+                                    after=torch.cuda.memory_allocated()))
+            return out
+
+        Orchestrator.apply_scenario_event = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        Orchestrator.apply_scenario_event = self._apply
+
+    def run_peak(self) -> int:
+        return max([self.peak_outside, torch.cuda.max_memory_allocated()]
+                   + [e["peak"] for e in self.events])
+
+
+def plane_run(model, params, spec, knobs, tag):
+    """One ``repro_torch.api.run`` of ``spec``; checks the report, prints
+    its numbers and returns (streams by request id, launches)."""
+    plane = api.LivePlane(engine="torch", model=model, params=params, **PLANE, **knobs)
+    on_card = model.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    mem = EventMemory() if on_card else None
+    if mem:
+        with mem:
+            report = api.run(spec, plane=plane)
+        torch.cuda.synchronize()
+    else:
+        report = api.run(spec, plane=plane)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    orch = report.extras.pop("orchestrator")
+    finished = list(orch.finished)
+    del orch
+    streams = {r.rid: list(r.output) for r in finished}
+    short = [r.rid for r in finished if len(r.output) != r.max_new_tokens]
+    if not (report.completed_all and report.n_completed == report.n_jobs == PLANE_REQUESTS
+            and report.n_failed == 0) or short:
+        raise AssertionError(f"[{tag}] {report.summary_line()}; short outputs: {short}")
+    fail = next((e for e in report.events if e["kind"] == "fail"), None)
+    if fail is None or fail["requeued"] < 1 or report.reconfigurations < 3:
+        raise AssertionError(f"[{tag}] the failure of srv0 shows no re-queue and "
+                             f"recomposition: {report.events}, "
+                             f"{report.reconfigurations} compositions")
+    # the simulated clock is the control plane's: the model-free mock plane
+    # must give the same events, rounds and quantiles for the same spec
+    mock = api.run(spec, plane=api.LivePlane(engine="mock", **PLANE))
+    seen = (report.events, report.extras["rounds"], report.response, report.waiting)
+    if seen != (mock.events, mock.extras["rounds"], mock.response, mock.waiting):
+        raise AssertionError(f"[{tag}] the simulated clock differs from the mock "
+                             f"plane's: {seen} vs {mock.summary_line()}")
+    tokens = sum(map(len, streams.values()))
+    r = report.response
+    log(f"  [{tag}] {report.summary_line()}")
+    log(f"  [{tag}] events {report.events}; {report.reconfigurations} compositions; "
+        f"final chains {report.extras['chains']}")
+    log(f"  [{tag}] response on the simulated clock ({PLANE['dt']} s a round, "
+        f"{report.extras['rounds']} rounds; equal to the mock plane's): mean "
+        f"{r['mean']:.4f} s, p50 {r['median']:.4f} s, p99 {r['p99']:.4f} s; {tokens} tokens "
+        f"in {wall:.3f} s wall ({tokens / wall:.2f} tokens/s); launches {launches}")
+    if mem:
+        for e in mem.events:
+            log(f"  [{tag}] memory around {e['kind']} at t={e['at']:.2f} s: allocated "
+                f"{e['before']} B before, peak {e['peak']} B, {e['after']} B after")
+        log(f"  [{tag}] max_memory_allocated over the run {mem.run_peak()} B")
+    return streams, launches
+
+
+def plane_phase() -> dict:
+    """Phase 6: the three plane runs at full width and depth in bfloat16."""
+    cfg = serve.model_config("qwen3-8b")
+    model = Model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    spec = plane_spec(cfg)
+    log(f"plane: qwen3-8b full width, {cfg.num_layers} layers, {cfg.dtype}; spec "
+        f"{spec.to_json()}")
+    by_layout = {}
+    for name, knobs in PLANE_RUNS.items():
+        _, launches = plane_run(model, params, spec, knobs, name)
+        decode = "paged_decode_attention" if knobs["kv_layout"] == "paged" \
+            else "decode_attention"
+        if launches["flash_attention"] == 0 or launches[decode] == 0:
+            raise AssertionError(f"[{name}] kernels not on the path: {launches}")
+        by_layout[name] = launches
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_layout
+
+
+def to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+def plane_f32(model, params):
+    """Phase 5's plane runs: phase 6's spec at 4 layers in float32 (TF32
+    off); the three layouts' streams must be identical.  Returns what the
+    CPU comparison needs: the model's config, the parameters copied to the
+    host and the paged plane's streams."""
+    spec = plane_spec(model.cfg)
+    streams = {}
+    for name, knobs in PLANE_RUNS.items():
+        streams[name], _ = plane_run(model, params, spec, knobs, f"f32 {name}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in ("plane_paged", "plane_pipeline_paged"):
+        if streams[name] != streams["plane_slotted"]:
+            diff = [k for k in streams[name] if streams[name][k] != streams["plane_slotted"].get(k)]
+            raise AssertionError(f"f32 {name} streams differ from plane_slotted for "
+                                 f"requests {diff}")
+    log(f"f32: plane slotted == paged == pipeline paged greedy streams for all "
+        f"{len(streams['plane_slotted'])} requests "
+        f"({sum(map(len, streams['plane_slotted'].values()))} tokens)")
+    return model.cfg, to_cpu(params), streams["plane_paged"]
+
+
+def plane_on_cpu(cfg, params, card_streams) -> None:
+    """Phase 5's last check, run after phase 6 so that its minute of host
+    load cannot touch the card's timings: the paged plane over the same
+    float32 weights on the host's CPU; equality with the card's streams is
+    reported, not asserted."""
+    t0 = time.perf_counter()
+    streams, _ = plane_run(Model(cfg, "cpu"), params, plane_spec(cfg),
+                              PLANE_RUNS["plane_paged"], "f32 plane_paged on the CPU")
+    same = sum(streams[k] == v for k, v in card_streams.items())
+    log(f"f32: the paged plane on the CPU ({time.perf_counter() - t0:.1f} s) gives the "
+        f"card's streams for {same}/{len(streams)} requests (reported, not asserted)")
 
 
 def main() -> int:
@@ -607,7 +819,9 @@ def main() -> int:
     log("kernels:")
     records = kernels_phase(L2Flush())
     by_layout = serve_phase()
-    f32_phase()
+    on_cpu = f32_phase()
+    by_layout.update(plane_phase())
+    plane_on_cpu(*on_cpu)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name],

@@ -1,5 +1,5 @@
 """Serving layer: live orchestrator, chain engines (monolithic and
-pipeline-parallel) and KV caches."""
+pipeline-parallel, and a model-free mock) and KV caches."""
 from .engine import ChainEngine, PagedChainEngine
 from .kv_cache import (
     PAGE_SIZE,
@@ -8,12 +8,14 @@ from .kv_cache import (
     SlotCache,
     service_spec_for,
 )
+from .mock import MockEngine, mock_orchestrator
 from .orchestrator import Orchestrator, OrchestratorConfig
 from .pipeline import PipelineChainEngine, StageSpec, plan_stages
 from .request import Request, State
 
 __all__ = [
-    "ChainEngine", "PagedChainEngine", "PAGE_SIZE", "PageAccounting",
+    "ChainEngine", "MockEngine", "PagedChainEngine", "PAGE_SIZE",
+    "PageAccounting", "mock_orchestrator",
     "PagedCache", "SlotCache", "service_spec_for", "Orchestrator",
     "OrchestratorConfig", "PipelineChainEngine", "Request", "StageSpec",
     "State", "plan_stages",

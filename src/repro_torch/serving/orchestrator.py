@@ -22,12 +22,13 @@ Autoscalers observe and actuate through hooks: ``submit_hooks`` fire on
 every request submission (arrival telemetry), ``step_hooks`` after every
 decode round (state sampling + control ticks).  The default data plane is
 the port's ``ChainEngine``; ``OrchestratorConfig.engine_factory`` swaps in
-another (``PagedChainEngine``, or a mock for control-plane tests).
+another (``PagedChainEngine``, ``PipelineChainEngine``, or the model-free
+``repro_torch.serving.mock.MockEngine`` for control-plane runs).
 
 This is a copy of the JAX package's ``serving/orchestrator.py`` with the
-port's engine as the default.  The scenario hooks (``apply_scenario_event``
-and the deprecated ``run_scenario`` shim) drive the JAX package's
-experiment API and come with the port's own planes (ROADMAP item 6).
+port's engine as the default.  Scripted cluster events reach a live system
+through :meth:`Orchestrator.apply_scenario_event`, which the port's live
+plane (:func:`repro_torch.api.planes.drive_orchestrator`) calls.
 
 Multi-tenant SLO classes: requests carry a class index into
 ``OrchestratorConfig.classes`` (:class:`repro_torch.core.RequestClass`).  The
@@ -478,6 +479,56 @@ class Orchestrator:
         self.tau_scale[sid] = (1 - a) * self.tau_scale[sid] + a * observed_scale
         if self.tau_scale[sid] > self.cfg.straggler_threshold:
             self._recompose_preserving(now, drain=True)
+
+    # -- scenario hooks (repro_torch.core.scenarios timelines on a live system) ----------
+    def apply_scenario_event(self, ev, now: float = 0.0) -> dict:
+        """Apply one ``repro_torch.core.scenarios.ScenarioEvent`` to the live
+        system: ``fail`` -> :meth:`fail_server`, ``fail_group`` ->
+        :meth:`fail_servers`, ``add`` -> :meth:`add_server`, ``slowdown`` ->
+        :meth:`report_tau` (the scale is fed as the observed straggler
+        ratio).  ``burst`` events shape the request arrival process, not the
+        cluster, and are a no-op here."""
+        out = {"time": ev.time, "kind": ev.kind, "requeued": 0}
+        if ev.kind == "fail":
+            if ev.sid in self.servers:
+                out["requeued"] = self.fail_server(ev.sid, now)
+        elif ev.kind == "fail_group":
+            present = [sid for sid in ev.sids if sid in self.servers]
+            if present:
+                out["requeued"] = self.fail_servers(present, now)
+        elif ev.kind == "add":
+            self.add_server(ev.server, now)
+        elif ev.kind == "slowdown":
+            self.report_tau(ev.sid, ev.scale, now)
+        out["chains"] = len(self.engines)
+        return out
+
+    def run_scenario(
+        self,
+        scenario,
+        requests: Sequence,
+        dt: float = 1.0,
+        max_rounds: int = 100_000,
+    ) -> dict:
+        """Deprecated compatibility shim — the decode-round drive loop now
+        lives in :func:`repro_torch.api.planes.drive_orchestrator` (the live
+        plane's executor), which also fast-forwards idle stretches instead
+        of spinning ``dt`` at a time.  Declarative runs should build a
+        ``repro_torch.api.ExperimentSpec`` and call
+        ``repro_torch.api.run(spec, plane="live")``; this method survives for
+        callers holding a live orchestrator with their own ``Request``
+        objects and returns the same summary dict as before.
+        """
+        import warnings
+
+        warnings.warn(
+            "Orchestrator.run_scenario is deprecated; use repro_torch.api.run("
+            "spec, plane='live') or repro_torch.api.planes.drive_orchestrator",
+            DeprecationWarning, stacklevel=2)
+        from repro_torch.api.planes import drive_orchestrator
+
+        return drive_orchestrator(self, scenario, requests, dt=dt,
+                                  max_rounds=max_rounds)
 
     # -- introspection ---------------------------------------------------------------
     def stats(self) -> dict:

@@ -48,6 +48,9 @@ def test_no_source_file_imports_jax_or_repro():
     "from repro_torch.configs import get; from repro_torch.models import Model; "
     "Model(get('qwen3-8b').reduced())",
     "from repro_torch import resolve_device; resolve_device('cuda')",
+    "from repro_torch import api; from repro_torch.configs import get; "
+    "from repro_torch.models import Model; "
+    "api.LivePlane(engine='torch', model=Model(get('qwen3-8b')), params={})",
 ])
 def test_entry_points_raise_without_a_card(call):
     res = _run(call, CUDA_VISIBLE_DEVICES="")
